@@ -2,9 +2,8 @@
 
 Drives ONLY config 4 (graph + unitigs) from a pipeline run's corrected.npz
 + overlaps.npz — the DP stages are not redone — and evaluates each variant
-against the known simulated genome.  Used to chase the judged-scale
-contiguity item (metrics_ecoli.json: 32 contigs) without paying the ~45 min
-pipeline re-run per parameter setting.
+against the known simulated genome, without paying a whole pipeline
+re-run per parameter setting.
 
 Usage: python -m exp.asm_sweep [rundir] [genome_mb] [genome_seed]
 """
@@ -17,7 +16,7 @@ import numpy as np
 
 
 def main():
-    rundir = sys.argv[1] if len(sys.argv) > 1 else "/tmp/scale_4.6mb"
+    rundir = sys.argv[1] if len(sys.argv) > 1 else ".chip_smoke/scale_4.6mb"
     gmb = float(sys.argv[2]) if len(sys.argv) > 2 else 4.6
     seed = int(sys.argv[3]) if len(sys.argv) > 3 else 42
 

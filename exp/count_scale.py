@@ -6,6 +6,7 @@ Usage: python -m exp.count_scale [genome_mb] [out_json]
 """
 
 import json
+import os
 import sys
 import time
 
@@ -14,7 +15,8 @@ import numpy as np
 
 def main():
     gmb = float(sys.argv[1]) if len(sys.argv) > 1 else 4.6
-    out_path = sys.argv[2] if len(sys.argv) > 2 else "/tmp/count21_metrics.json"
+    out_path = (sys.argv[2] if len(sys.argv) > 2
+                else ".chip_smoke/count21_metrics.json")
     G = int(gmb * 1_000_000)
 
     from hga_tpu.config import AssemblerConfig
@@ -50,6 +52,7 @@ def main():
         genome_kmers_expected=G - 20,
     )
     print(json.dumps(out, indent=2), flush=True)
+    os.makedirs(os.path.dirname(out_path) or ".", exist_ok=True)
     with open(out_path, "w") as fh:
         json.dump(out, fh, indent=2)
 

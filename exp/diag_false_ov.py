@@ -1,6 +1,6 @@
 """Classify saved judged-scale overlaps as true/false vs simulator truth.
 
-Reads /tmp/scale_4.6mb/{corrected,overlaps}.npz; read names encode truth
+Reads .chip_smoke/scale_4.6mb/{corrected,overlaps}.npz; read names encode truth
 loci (lr_{i}_{start}_{strand}_{genome_len}).  An overlap record is TRUE if
 the two reads' genome intervals intersect by >= min_overlap_len.  Prints
 the feature distributions (identity, segment length, score) of true vs
@@ -14,7 +14,7 @@ import numpy as np
 from hga_tpu.io.encode import PackedReads
 from hga_tpu.models.overlap import OverlapRecords
 
-rundir = sys.argv[1] if len(sys.argv) > 1 else "/tmp/scale_4.6mb"
+rundir = sys.argv[1] if len(sys.argv) > 1 else ".chip_smoke/scale_4.6mb"
 pr = PackedReads.load(f"{rundir}/corrected.npz")
 ov = OverlapRecords.load(f"{rundir}/overlaps.npz")
 

@@ -7,8 +7,8 @@ from hga_tpu.models import assembly as A
 from hga_tpu.utils.compile_cache import enable_compile_cache
 enable_compile_cache()
 
-pr = PackedReads.load("/tmp/scale_4.6mb/corrected.npz")
-ov = OverlapRecords.load("/tmp/scale_4.6mb/overlaps.npz")
+pr = PackedReads.load(".chip_smoke/scale_4.6mb/corrected.npz")
+ov = OverlapRecords.load(".chip_smoke/scale_4.6mb/overlaps.npz")
 cfg = AssemblerConfig(k=15, w=5, band=64, min_shared_minimizers=2,
                       min_overlap_len=500, min_identity=0.75,
                       min_contig_len=2000)

@@ -16,7 +16,7 @@ def main():
 
     logging.basicConfig(level=logging.WARNING)
     path = (sys.argv[1] if len(sys.argv) > 1
-            else "/tmp/scale_15rep_v2/contigs.fasta")
+            else ".chip_smoke/scale_15rep_v2/contigs.fasta")
     gkb = float(sys.argv[2]) if len(sys.argv) > 2 else 1500.0
 
     from exp.diag_repeat_corr import derive

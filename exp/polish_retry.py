@@ -14,7 +14,7 @@ import numpy as np
 def main():
     logging.basicConfig(level=logging.INFO,
                         format="%(asctime)s %(name)s %(levelname)s %(message)s")
-    rundir = sys.argv[1] if len(sys.argv) > 1 else "/tmp/scale4_r4"
+    rundir = sys.argv[1] if len(sys.argv) > 1 else ".chip_smoke/scale4_r4"
     passes = int(sys.argv[2]) if len(sys.argv) > 2 else 2
     gmb = float(sys.argv[3]) if len(sys.argv) > 3 else 4.6
     seed = int(sys.argv[4]) if len(sys.argv) > 4 else 42

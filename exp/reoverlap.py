@@ -17,8 +17,8 @@ def main():
     logging.basicConfig(level=logging.INFO,
                         format="%(asctime)s %(name)s %(levelname)s %(message)s")
     args = [a for a in sys.argv[1:] if not a.startswith("--")]
-    rundir = args[0] if len(args) > 0 else "/tmp/scale_4.6mb"
-    outdir = args[1] if len(args) > 1 else "/tmp/reoverlap"
+    rundir = args[0] if len(args) > 0 else ".chip_smoke/scale_4.6mb"
+    outdir = args[1] if len(args) > 1 else ".chip_smoke/reoverlap"
     gmb = float(args[2]) if len(args) > 2 else 4.6
     seed = int(args[3]) if len(args) > 3 else 42
     do_polish = "--polish" in sys.argv

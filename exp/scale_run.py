@@ -10,6 +10,10 @@ correction/overlap wall-clock splits into a JSON file for the round
 metrics.
 
 Usage:  python -m exp.scale_run [genome_mb] [outdir] [--repeats]
+            [--circular] [--corr-passes=N] [--xla-myers]
+
+--xla-myers runs the Myers DP on the XLA engine (ops/myers.py) even where
+the Pallas kernel would: the end-to-end A/B of the kernel.
 """
 
 import json
@@ -27,9 +31,11 @@ def main():
     repeats = "--repeats" in sys.argv
     circular = "--circular" in sys.argv
     gmb = float(args[0]) if len(args) > 0 else 4.6
-    outdir = args[1] if len(args) > 1 else (
-        f"/tmp/scale_{gmb}mb" + ("_rep" if repeats else "")
-        + ("_circ" if circular else ""))
+    xla_myers = "--xla-myers" in sys.argv
+    outdir = args[1] if len(args) > 1 else os.path.join(
+        os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
+        ".chip_smoke", f"scale_{gmb}mb" + ("_rep" if repeats else "")
+        + ("_circ" if circular else "") + ("_xla" if xla_myers else ""))
     G = int(gmb * 1_000_000)
 
     from hga_tpu.config import AssemblerConfig
@@ -40,6 +46,10 @@ def main():
     from hga_tpu.utils.evalx import evaluate_contigs
 
     enable_compile_cache()
+    if xla_myers:
+        import hga_tpu.ops.myers_pallas as MP
+
+        MP.gpu_kernel_takes = lambda *a: False
 
     t0 = time.perf_counter()
     genome = (sim.repeat_genome(G, seed=42) if repeats
@@ -80,7 +90,7 @@ def main():
                           corr_passes=corr_passes,
                           corr_batch_pairs=4096, min_contig_len=2000)
     t0 = time.perf_counter()
-    res = run_pipeline(pr_s, pr_l, cfg, outdir, resume=True)
+    res = run_pipeline(pr_s, pr_l, cfg, outdir)
     t_pipe = time.perf_counter() - t0
 
     total_reads = pr_s.n_reads + pr_l.n_reads
@@ -118,7 +128,13 @@ def main():
             if acc > 0 and not (0.5 * acc <= stages[name]["seconds"] * 1.05):
                 print(f"WARNING: {name} split {acc:.0f}s does not reconcile "
                       f"with stage {stages[name]['seconds']:.0f}s", flush=True)
+    import jax
+
+    dev = jax.devices()[0]
     out = dict(genome_mb=gmb, repeats=repeats, circular=circular,
+               myers_engine="xla" if xla_myers else "dispatch",
+               platform=dev.platform, device_kind=dev.device_kind,
+               device_count=len(jax.devices()),
                n_short=pr_s.n_reads, n_long=pr_l.n_reads,
                pipeline_seconds=round(t_pipe, 1),
                reads_per_s=round(total_reads / t_pipe, 1),

@@ -1,11 +1,11 @@
-"""hga_tpu — a TPU-native hybrid de-novo genome assembler.
+"""hga_tpu — a device-native hybrid de-novo genome assembler.
 
 A brand-new JAX / XLA / Pallas / pjit framework with the capabilities of the
 reference single-node C++ hybrid assembler (matuszelenak/Hybrid-Genome-Assembler):
 
 * k-mer extraction / counting / spectrum analysis over 2-bit-packed read batches
 * minimizer seeding + all-vs-all candidate overlap detection
-* banded Smith-Waterman overlap extension as an anti-diagonal wavefront kernel
+* bit-parallel Myers overlap gating and a banded Smith-Waterman wavefront DP
 * overlap-graph construction (CSR tensors), transitive reduction, unitig contigs
 * hybrid long-read correction + consensus polishing (pileup DP)
 * multi-host data-parallel execution over a `jax.sharding.Mesh` with

@@ -311,7 +311,7 @@ def main(argv: Optional[List[str]] = None) -> int:
 
     enable_compile_cache()
     ap = argparse.ArgumentParser(
-        prog="hga", description="TPU-native hybrid genome assembler")
+        prog="hga", description="hybrid de-novo genome assembler")
     sub = ap.add_subparsers(dest="cmd", required=True)
 
     for name, fn, needs_reads in [
@@ -364,7 +364,7 @@ def main(argv: Optional[List[str]] = None) -> int:
     p = sub.add_parser("bench")
     p.add_argument("--what", default="myers",
                    choices=["myers", "sw", "count", "correction",
-                            "pipeline", "scaling", "comm"])
+                            "pipeline", "scaling"])
     p.add_argument("--pairs", type=int, default=4096)
     p.set_defaults(fn=cmd_bench)
 

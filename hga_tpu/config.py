@@ -1,4 +1,4 @@
-"""Central configuration for the TPU-native hybrid assembler.
+"""Central configuration for the hybrid assembler.
 
 One dataclass carries every tunable (k, minimizer window, band width,
 thresholds, mesh shape, capacities).  Capability parity: the reference C++
@@ -46,7 +46,7 @@ class AssemblerConfig:
     min_identity: float = 0.70
     # Survivor coordinate refinement: "myers" derives end coords from the
     # gate's forward pass and start coords from ONE reversed bit-parallel
-    # pass (~659 vs ~30 GCUPS — the round-2 verdict's refine-free option;
+    # pass (the round-2 verdict's refine-free option;
     # score = match * (span - dist), the long-read path's convention);
     # "sw" keeps the exact scored wavefront refine (local-SW trimmed
     # coordinates + DP score, two banded passes per survivor).
@@ -125,9 +125,9 @@ class AssemblerConfig:
     # traceback scan; 4096 measured ~30% faster per-alignment than 1024)
     corr_batch_pairs: int = 1024
     # Correction DP engine: "myers" runs the bit-parallel planes kernel +
-    # plane-based traceback (ops/myers_pallas + ops/pileup, ~20x the scored
-    # DP's cell rate); "sw" keeps the scored dirs wavefront DP.  The Myers
-    # gate accepts a read->backbone alignment iff edit_distance <=
+    # plane-based traceback (ops/myers_pallas + ops/pileup); "sw" keeps
+    # the scored dirs wavefront DP.  The Myers gate accepts a
+    # read->backbone alignment iff edit_distance <=
     # (1 - min_identity) * read_len (full-query semi-global; SW clips tails
     # instead — consensus votes are majority-robust to the difference).
     corr_engine: str = "myers"

@@ -1,6 +1,6 @@
 """L0 — 2-bit base encoding and fixed-width packed read batches.
 
-TPU-native replacement for the reference's per-read heap strings
+Device replacement for the reference's per-read heap strings
 (SURVEY.md L0: C++ `SequenceRecordIterator`-like streaming reader producing
 `std::string` reads).  Here every read batch is a dense, fixed-width,
 2-bit-packed `uint32` tensor (16 bases per word, LSB-first), padded to a

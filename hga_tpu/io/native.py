@@ -27,9 +27,13 @@ _tried = False
 
 
 def _build() -> bool:
-    cmd = ["g++", "-O3", "-shared", "-fPIC", _SRC, "-o", _LIB, "-lz"]
+    # build beside the target and rename into place, so a concurrent
+    # process never loads a half-written library
+    tmp = f"{_LIB}.{os.getpid()}.tmp"
+    cmd = ["g++", "-O3", "-shared", "-fPIC", _SRC, "-o", tmp, "-lz"]
     try:
         subprocess.run(cmd, check=True, capture_output=True, timeout=120)
+        os.replace(tmp, _LIB)
         return True
     except (subprocess.SubprocessError, FileNotFoundError) as e:
         log.warning("native build failed (%s); using python parser", e)

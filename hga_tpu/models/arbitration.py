@@ -252,11 +252,10 @@ def arbitrate_contigs(
     seqs = [s for _, s in contigs]
     # round the contig pad to a coarse granule: the minimizer-extraction
     # kernel compiles per (batch, pad) shape, and a megabase-scale pad that
-    # tracks the exact contig length forces a fresh multi-minute remote
-    # compile for EVERY contig length (measured 527 s place_s at judged
-    # scale, almost all one compile).  A 512 KiB granule makes the shape
-    # reusable across contigs and runs (persistent compile cache) for
-    # <= 11% padding waste.
+    # tracks the exact contig length forces a fresh compile for EVERY
+    # contig length.  A 512 KiB granule makes the shape reusable across
+    # contigs and runs (persistent compile cache) for <= 11% padding
+    # waste.
     GRAN = 1 << 19
     raw = max(len(s) for s in seqs)
     pad_c = ((max(raw, 16) + GRAN - 1) // GRAN * GRAN if raw > GRAN

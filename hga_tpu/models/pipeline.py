@@ -182,6 +182,16 @@ class _Stage:
         log.info("stage %s: %.2fs", name, dt)
 
 
+# Read sets padded beyond this many bases take the long-read overlap path
+# (anchor chaining + segment DPs, models/overlap_long.py); shorter pads run
+# candidate seeding + the whole-read gate of models/overlap.py.
+LONG_MODE_MIN_PAD = 1024
+
+
+def is_long_mode(pad_len: int) -> bool:
+    return pad_len > LONG_MODE_MIN_PAD
+
+
 def run_pipeline(
     pr_short: Optional[PackedReads],
     pr_long: Optional[PackedReads],
@@ -314,10 +324,8 @@ def run_pipeline(
     if asm_reads is None:
         raise ValueError("no reads given")
 
-    from hga_tpu.ops.align_pallas import MAX_QUERY_LEN
-
     ov_timings: Dict = {}
-    long_mode = asm_reads.pad_len > MAX_QUERY_LEN
+    long_mode = is_long_mode(asm_reads.pad_len)
     if long_mode:
         # long-read path: anchor chaining + segment DPs live inside
         # compute_overlaps_long (component C8) — no separate candidate stage

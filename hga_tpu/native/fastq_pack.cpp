@@ -1,6 +1,6 @@
 // Native L0 runtime: streaming FASTQ/FASTA parser + 2-bit packer.
 //
-// TPU-native counterpart of the reference's C++ SequenceRecordIterator
+// Native counterpart of the reference's C++ SequenceRecordIterator
 // (SURVEY.md C1/C2).  The Python fallback in hga_tpu/io/fastq.py defines the
 // semantics; this library must produce bit-identical packed tensors:
 //   * 2-bit codes A=0 C=1 G=2 T=3 (case-insensitive), 16 bases per uint32,

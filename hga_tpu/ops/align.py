@@ -1,14 +1,15 @@
 """L3 device ops — banded Smith-Waterman as an anti-diagonal wavefront.
 
-TPU-native replacement for the reference's scalar cell-at-a-time alignment
+Device replacement for the reference's scalar cell-at-a-time alignment
 loops (SURVEY.md C9, BASELINE.json: "scalar alignment loops" become "tiled
-wavefront DP kernels").  This is the judged GCUPS hot spot.
+wavefront DP kernels").  The production overlap gate and correction DP run
+the bit-parallel Myers engine (ops/myers.py); this scored DP serves
+cfg.overlap_refine = "sw" and cfg.corr_engine = "sw".
 
-Layout (shared by this XLA implementation and the Pallas kernel in
-ops/align_pallas.py):
+Layout:
 
 * A batch of P pairs is aligned simultaneously; the DP state is a pair of
-  anti-diagonal vectors shaped (P, W) — P in sublanes, band width W in lanes.
+  anti-diagonal vectors shaped (P, W) — P pairs by band width W.
 * Cells on anti-diagonal d are indexed by query position i (no parity gaps):
   the vector slot p holds cell (i, j) with i = o(d) + p, j = d - i, where
   o(d) = max(1, d - Lt, ceil((d - band) / 2)) is the band's lower i bound.

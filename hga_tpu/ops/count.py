@@ -1,9 +1,9 @@
 """L1 device ops — k-mer counting as sort + segment-reduce.
 
-TPU-native replacement for the reference's C++ hash-table k-mer counters
+Device replacement for the reference's C++ hash-table k-mer counters
 (SURVEY.md C4, BASELINE.json: "C++ hash-table k-mer counters" become
 "device-resident sorted/bucketed k-mer tensors").  A hash table is a
-pointer-chasing, cache-miss-bound structure; on TPU the same multiset-count
+pointer-chasing, cache-miss-bound structure; on device the same multiset-count
 is a bitonic `lax.sort` over (hi, lo) pairs followed by run-boundary
 detection and a scatter-add segment sum — all static shapes, all vector ops.
 
@@ -138,7 +138,7 @@ def member_sorted(set_hi: jax.Array, set_lo: jax.Array,
                   q_hi: jax.Array, q_lo: jax.Array) -> jax.Array:
     """Exact membership of each query (hi, lo) in a sentinel-padded set.
 
-    TPUs lack a 2-key binary search, so membership is a sorted merge: tag set
+    Membership is a sorted merge (no 2-key binary search needed): tag set
     elements 0 and queries 1, sort by (hi, lo), propagate a has-set flag
     within each equal run, scatter back through the sort permutation.
     Sentinel queries return False (the set must not contain the sentinel,

@@ -1,6 +1,6 @@
 """L4 device ops — CSR overlap graph + transitive reduction as segment ops.
 
-TPU-native replacement for the reference's pointer-based overlap graph
+Device replacement for the reference's pointer-based overlap graph
 (SURVEY.md C10, BASELINE.json: "pointer-based overlap graph" becomes "CSR
 edge tensors with segment-ops traversal").  Nodes are oriented reads, edges
 live in sorted flat tensors; adjacency is (row_ptr, sorted edge list);
@@ -32,8 +32,8 @@ def lookup_sorted(
 
     Set keys must be unique (callers dedupe).  Returns (found bool, val);
     val is set_val of the match or 0.  Implemented as a tagged sorted merge
-    (same pattern as ops.count.member_sorted) — two-key binary search does
-    not exist on TPU, a sort + segment-propagate does the same join.
+    (same pattern as ops.count.member_sorted) — a sort + segment-propagate
+    does the join of a two-key binary search.
     """
     S = set_a.shape[0]
     Q = q_a.shape[0]

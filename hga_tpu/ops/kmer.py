@@ -1,14 +1,14 @@
 """L1 device ops — unpack 2-bit reads and extract canonical k-mers.
 
-TPU-native replacement for the reference's rolling C++ `KmerIterator`
+Device replacement for the reference's rolling C++ `KmerIterator`
 (SURVEY.md C2/C3).  Instead of a sequential rolling update per read, the
 whole (reads x positions) plane is computed at once from k statically-shifted
-views — pure vector ops that XLA fuses into a handful of VPU passes, with no
+views — pure vector ops that XLA fuses into a handful of passes, with no
 data-dependent shapes.
 
-TPUs have no 64-bit integers, so a k<=32-mer is carried as a (hi, lo) pair of
-uint32 with lexicographic order equal to uint64 order (oracle:
-hga_tpu/utils/oracle.py kmer_values / split_hi_lo).
+A k<=32-mer is carried as a (hi, lo) pair of uint32 (JAX runs without
+64-bit integers by default) with lexicographic order equal to uint64
+order (oracle: hga_tpu/utils/oracle.py kmer_values / split_hi_lo).
 """
 
 from __future__ import annotations

@@ -1,11 +1,11 @@
 """L2 device ops — (w,k)-minimizer selection as a vectorized window-min.
 
-TPU-native replacement for the reference's per-read rolling minimizer /
+Device replacement for the reference's per-read rolling minimizer /
 shared-k-mer seed selection (SURVEY.md C6).  The window-minimum over w
 consecutive hashed k-mers is computed for the whole (reads x windows) plane
-at once from w statically-shifted views — O(w) fused VPU passes, no queues,
-no data-dependent control flow (cf. PAPERS.md "Parallel approach to sliding
-window sums").
+at once from w statically-shifted views — O(w) fused elementwise passes, no
+queues, no data-dependent control flow (cf. PAPERS.md "Parallel approach
+to sliding window sums").
 
 Semantics (oracle: utils/oracle.minimizers):
 * hash = fmix32(lo ^ hi*golden); invalid k-mers never win a window.

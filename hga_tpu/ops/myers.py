@@ -1,12 +1,16 @@
-"""L3 — bit-parallel Myers overlap DP (the TPU-first throughput redesign).
+"""L3 — bit-parallel Myers overlap DP (the plain XLA reference engine).
 
 Replaces scored banded SW on the overlap-extension hot path (SURVEY.md C9,
 "scalar alignment loops"; call stack §4.2) with Myers' 1999 bit-parallel
 semi-global edit distance: one int32 word advances 31 DP cells per
-elementwise op, and every lane of the VPU carries an independent pair —
-no cross-lane shifts, no per-step windows, no band mask.  The wavefront SW
-kernels (ops/align.py, ops/align_pallas.py) remain for scored alignment
-where base-level CIGARs/pileups are needed (models/correction.py).
+elementwise op, and every pair is independent — no cross-pair shifts, no
+per-step windows, no band mask.  The wavefront SW DP (ops/align.py) remains
+for scored alignment (cfg.overlap_refine / corr_engine = "sw").
+
+This module is the reference the GPU kernel (ops/myers_pallas.py) is
+checked against bit for bit, and the engine wherever that kernel does not
+run: the CPU, a shared 1-row target, queries over its word cap, and the
+resumable column form the ring engine (parallel/ring_myers.py) uses.
 
 Semantics (oracle.edit_distance_hw): infix / "HW" mode — the query aligns
 fully, target start and end are free: D[i][0] = i, D[0][j] = 0, the result
@@ -73,13 +77,12 @@ def query_planes(q: jax.Array, qlen: jax.Array, W: int):
     b0 = (qp & 1).astype(I32)
     b1 = ((qp >> 1) & 1).astype(I32)
     shifts = (jnp.arange(W * PAYLOAD, dtype=I32) % PAYLOAD)[None, :]
-    w_of = (jnp.arange(W * PAYLOAD) // PAYLOAD)[None, :]
 
     def plane(bits):
-        v = (bits << shifts).astype(I32)
-        # sum bits into their word: one-hot matmul over the word index
-        onehot = (w_of == jnp.arange(W)[:, None, None]).astype(I32)  # W,1,WP
-        return jnp.einsum("np,wxp->nw", v, onehot)
+        # each bit lands on its own position of its word, so an integer sum
+        # over the word's 31 positions equals their OR (exact, no carries)
+        v = (bits << shifts).astype(I32).reshape(N, W, PAYLOAD)
+        return jnp.sum(v, axis=2, dtype=I32)
 
     q0 = plane(b0 * valid)
     q1 = plane(b1 * valid)
@@ -170,7 +173,7 @@ def myers_cols_planes(q0, q1, vq, mend, t, tlen, state, j0=0):
     target column j0+c+1.  D(i, j) for any cell reconstructs as the prefix
     sum of the plane bits (+1 where Pv, -1 where Mv, bits 0..i-1), which is
     what the plane-based traceback (ops/pileup.accumulate_backbone_votes_
-    myers) uses to re-derive alignment moves at gate speed — the TPU-native
+    myers) uses to re-derive alignment moves at gate speed — the device
     replacement for the reference's scalar traceback loops (SURVEY.md C12,
     §4.4) without a scored-DP direction tensor.
     """
@@ -228,11 +231,11 @@ def myers_cols_planes(q0, q1, vq, mend, t, tlen, state, j0=0):
 @functools.partial(jax.jit, static_argnames=("W",))
 def myers_batch_planes(q: jax.Array, t: jax.Array, qlen: jax.Array,
                        tlen: jax.Array, W: int = 0):
-    """myers_batch + per-column Pv/Mv planes (XLA everywhere-fallback).
+    """myers_batch + per-column Pv/Mv planes (XLA reference engine).
 
     Returns (MyersResult, pv_planes, mv_planes), planes int32 (Lt, N, W).
-    The TPU hot path is ops/myers_pallas.myers_batch_planes_pallas with
-    identical results.
+    On the GPU, ops/myers_pallas.myers_batch_planes_pallas computes the
+    identical result.
     """
     N, Lq = q.shape
     W = W or n_words(Lq)
@@ -252,8 +255,8 @@ def myers_batch(q: jax.Array, t: jax.Array, qlen: jax.Array,
     """Batched bit-parallel semi-global edit distance (XLA column scan).
 
     q, t: int32 base codes (N, Lq), (N, Lt); codes outside 0..3 never match.
-    Runs everywhere (CPU tests, fallback); the Pallas kernel in
-    ops/myers_pallas.py is the TPU hot path with identical results.
+    Runs on every backend; on the GPU the Pallas kernel in
+    ops/myers_pallas.py computes the identical result.
     """
     N, Lq = q.shape
     W = W or n_words(Lq)

@@ -1,28 +1,27 @@
-"""L3 — bit-parallel Myers overlap DP as a Pallas TPU kernel (the hot path).
+"""L3 — bit-parallel Myers overlap DP as a Pallas kernel for the GPU.
 
-TPU-native replacement for the reference's scalar alignment loops on the
-overlap-extension path (SURVEY.md C9, §4.2): semantics identical to
-ops.myers.myers_batch (itself bit-exact vs utils.oracle.edit_distance_hw),
-but laid out for the VPU:
+Same semantics as ops.myers.myers_batch (the plain reference, itself
+bit-exact vs utils.oracle.edit_distance_hw), laid out for a CUDA card and
+lowered through Pallas' Triton route:
 
-* One PAIR per (sublane, lane) slot: a grid program advances a tile of
-  ``pair_sub x 128`` independent pairs (default 1024).  Every vector op is a
-  full (8, 128) int32 tile with zero cross-lane communication — the Myers
-  recurrence is pure elementwise bitwise/add ops.
-* The W query words are unrolled into SSA registers (a Python loop), so the
-  carry chains of the block addition and the cross-word shift are W-1
-  dependent VECTOR ops per column, not lane shifts or relayouts.
-* The target is pre-transposed to (Lt, pair_sub, 128): column j of the whole
-  pair tile is ONE aligned (pair_sub, 128) slice, fetched by a dynamic index
-  on the major axis (no lane-dim dynamic slicing, no 128-alignment issues).
-* 31 payload bits per word (bit 31 catches adder/shifter carries), so one
-  int32 op advances 31 DP cells per lane: a W=5 column costs ~180 tile ops
-  to advance 155 x 1024 cells — orders of magnitude past what any
-  select/max-based SW formulation can reach on the VPU (ops/align_pallas.py
-  measured ~15 GCUPS; this kernel exceeds the 140 GCUPS judged target).
+* One PAIR per thread: a program owns a 1-D block of ``block`` independent
+  pairs.  The Myers recurrence is pure elementwise bitwise/add work, so no
+  thread ever talks to another.
+* The W query words are unrolled in Python as block-shaped values, and the
+  column loop runs inside the kernel (``lax.fori_loop``): Pv/Mv for all W
+  words stay in registers for the whole target, where the XLA version pays
+  a chain of small (N, W) ops per column.
+* The target is stored column-major (Lt, N) as int8, so column j of a block
+  is one coalesced load of ``block`` bytes.
+* For W > ``RELOAD_WORDS`` the four query planes are re-read from memory
+  (L1-resident) every column instead of held in registers: at W = 24 the
+  held form needs 144 live words per thread.
+* The planes variant stores each column's Pv/Mv words straight to device
+  memory in the consumer's (Lt, N, W) layout.
 
-The XLA implementation in ops/myers.py remains the CPU/test fallback with
-identical results.
+Dispatch (``gpu_kernel_takes``) is by backend and shape alone; on the CPU,
+which is only for tests, the XLA engine runs and the kernel is exercised in
+interpret mode.
 """
 
 from __future__ import annotations
@@ -32,37 +31,55 @@ import functools
 import jax
 import jax.numpy as jnp
 from jax.experimental import pallas as pl
-from jax.experimental.pallas import tpu as pltpu
+from jax.experimental.pallas import triton as plgpu
 
 from hga_tpu.ops.myers import M31, MyersResult, n_words, query_planes
 
 I32 = jnp.int32
 
-# W words are unrolled into registers; cap compile size.  Queries longer than
-# MAX_WORDS*31 bases dispatch to segment DPs or the XLA path.
+# W query words are unrolled into the kernel body; cap compile size.
+# Queries longer than MAX_WORDS*31 bases run on the XLA engine.
 MAX_WORDS = 24
 MAX_QUERY_LEN = MAX_WORDS * 31
+# Launch settings, chosen by timing every (block, warps, reload) setting on
+# an H100 (exp/myers_tune.py; PERF.md): 128-pair blocks won at every shape,
+# 4 warps (one pair per thread) for the gate, 2 for the store-bound planes
+# variant, and re-reading the query planes won from W = 14 up.
+BLOCK = 128          # pairs per program (a power of two)
+GATE_WARPS = 4
+PLANES_WARPS = 2
+RELOAD_WORDS = 8     # above this many words, re-read the query planes
+
+
+def gpu_kernel_takes(Lq: int, n_target_rows: int, n_pairs: int) -> bool:
+    """True iff the edit/planes DP runs on the Pallas kernel.
+
+    The rule: the default backend is the GPU, the query fits MAX_WORDS
+    words, and every pair has its own target row.  A shared 1-row target
+    (segment-identity sweeps) and longer queries run on ops/myers.py.
+    """
+    return (jax.default_backend() == "gpu" and n_words(Lq) <= MAX_WORDS
+            and n_target_rows == n_pairs)
 
 
 def _myers_kernel(qlen_ref, tlen_ref, q0_ref, q1_ref, vq_ref, mend_ref,
-                  t_ref, dist_ref, tend_ref, *, W: int, Lt: int):
-    ql = qlen_ref[0]                       # (S, 128)
-    tl = tlen_ref[0]
-    q0 = [q0_ref[0, w] for w in range(W)]
-    q1 = [q1_ref[0, w] for w in range(W)]
-    vq = [vq_ref[0, w] for w in range(W)]
-    mend = [mend_ref[0, w] for w in range(W)]
-    # concrete-layout constants (a pure splat init in the loop carry can
-    # trigger Mosaic relayout aborts — derive from a loaded value instead)
+                  t_ref, dist_ref, tend_ref, *plane_refs, W: int, Lt: int,
+                  reload: bool):
+    ql = qlen_ref[...]                     # (B,)
+    tl = tlen_ref[...]
     zero = ql * 0
-    m31 = zero | jnp.int32(M31)
-    one = zero + 1
+    m31 = zero + M31
+
+    def planes_at(w):
+        return q0_ref[w, :], q1_ref[w, :], vq_ref[w, :], mend_ref[w, :]
+
+    held = None if reload else [planes_at(w) for w in range(W)]
 
     def col(j, carry):
         pv = list(carry[0:W])
         mv = list(carry[W:2 * W])
         score, best, bj = carry[2 * W:]
-        tc = t_ref[0, j]                   # (S, 128) — one aligned tile
+        tc = t_ref[j, :].astype(I32)       # (B,) — one coalesced load
         t0 = -(tc & 1)
         t1 = -((tc >> 1) & 1)
         # full validity compare: any code outside 0..3 never matches
@@ -73,15 +90,16 @@ def _myers_kernel(qlen_ref, tlen_ref, q0_ref, q1_ref, vq_ref, mend_ref,
         pb = zero
         mb = zero
         for w in range(W):
-            eq = (vq[w] & ~((q0[w] ^ t0) | (q1[w] ^ t1))) & tvm
+            q0, q1, vq, mend = held[w] if held is not None else planes_at(w)
+            eq = (vq & ~((q0 ^ t0) | (q1 ^ t1))) & tvm
             xv = eq | mv[w]
             sw = (eq & pv[w]) + pv[w] + cin
             cin = jax.lax.shift_right_logical(sw, 31) & 1
             xh = ((sw & m31) ^ pv[w]) | eq
             ph = mv[w] | ~(xh | pv[w])
             mh = pv[w] & xh
-            pb = pb | (ph & mend[w])
-            mb = mb | (mh & mend[w])
+            pb = pb | (ph & mend)
+            mb = mb | (mh & mend)
             ncp = jax.lax.shift_right_logical(ph, 30) & 1
             ncm = jax.lax.shift_right_logical(mh, 30) & 1
             ph = ((ph << 1) & m31) | cp
@@ -89,9 +107,12 @@ def _myers_kernel(qlen_ref, tlen_ref, q0_ref, q1_ref, vq_ref, mend_ref,
             cp, cm = ncp, ncm
             pv[w] = (mh | ~(xv | ph)) & m31
             mv[w] = ph & xv
+            if plane_refs:
+                plane_refs[0][j, :, w] = pv[w]
+                plane_refs[1][j, :, w] = mv[w]
         score = score + (pb != 0).astype(I32) - (mb != 0).astype(I32)
         take = (score < best) & (j < tl)
-        bj = jnp.where(take, j + one, bj)
+        bj = jnp.where(take, j + 1, bj)
         best = jnp.where(take, score, best)
         return tuple(pv) + tuple(mv) + (score, best, bj)
 
@@ -99,196 +120,98 @@ def _myers_kernel(qlen_ref, tlen_ref, q0_ref, q1_ref, vq_ref, mend_ref,
     out = jax.lax.fori_loop(0, Lt, col, init)
     best, bj = out[2 * W + 1], out[2 * W + 2]
     isz = ql == 0
-    dist_ref[0] = jnp.where(isz, zero, best)
-    tend_ref[0] = jnp.where(isz, zero, bj)
+    dist_ref[...] = jnp.where(isz, zero, best)
+    tend_ref[...] = jnp.where(isz, zero, bj)
 
 
-def _myers_planes_kernel(qlen_ref, tlen_ref, q0_ref, q1_ref, vq_ref,
-                         mend_ref, t_ref, dist_ref, tend_ref, pvp_ref,
-                         mvp_ref, *, W: int, Lt: int):
-    """_myers_kernel + per-column Pv/Mv plane stores (correction hot path).
-
-    Identical recurrence; after each column j the updated Pv/Mv words are
-    stored to (Lt, W, S, 128) plane outputs.  The planes feed the on-device
-    traceback (ops/pileup.accumulate_backbone_votes_myers), putting the
-    correction DP on the bit-parallel engine instead of the ~20x slower
-    scored dirs DP (ROADMAP 'Myers-with-traceback').
-    """
-    ql = qlen_ref[0]
-    tl = tlen_ref[0]
-    q0 = [q0_ref[0, w] for w in range(W)]
-    q1 = [q1_ref[0, w] for w in range(W)]
-    vq = [vq_ref[0, w] for w in range(W)]
-    mend = [mend_ref[0, w] for w in range(W)]
-    zero = ql * 0
-    m31 = zero | jnp.int32(M31)
-    one = zero + 1
-
-    def col(j, carry):
-        pv = list(carry[0:W])
-        mv = list(carry[W:2 * W])
-        score, best, bj = carry[2 * W:]
-        tc = t_ref[0, j]
-        t0 = -(tc & 1)
-        t1 = -((tc >> 1) & 1)
-        tvm = -(((tc >= 0) & (tc < 4)).astype(I32))
-        cin = zero
-        cp = zero
-        cm = zero
-        pb = zero
-        mb = zero
-        for w in range(W):
-            eq = (vq[w] & ~((q0[w] ^ t0) | (q1[w] ^ t1))) & tvm
-            xv = eq | mv[w]
-            sw = (eq & pv[w]) + pv[w] + cin
-            cin = jax.lax.shift_right_logical(sw, 31) & 1
-            xh = ((sw & m31) ^ pv[w]) | eq
-            ph = mv[w] | ~(xh | pv[w])
-            mh = pv[w] & xh
-            pb = pb | (ph & mend[w])
-            mb = mb | (mh & mend[w])
-            ncp = jax.lax.shift_right_logical(ph, 30) & 1
-            ncm = jax.lax.shift_right_logical(mh, 30) & 1
-            ph = ((ph << 1) & M31) | cp
-            mh = ((mh << 1) & M31) | cm
-            cp, cm = ncp, ncm
-            pv[w] = (mh | ~(xv | ph)) & M31
-            mv[w] = ph & xv
-            pvp_ref[0, j, w] = pv[w]
-            mvp_ref[0, j, w] = mv[w]
-        score = score + (pb != 0).astype(I32) - (mb != 0).astype(I32)
-        take = (score < best) & (j < tl)
-        bj = jnp.where(take, j + one, bj)
-        best = jnp.where(take, score, best)
-        return tuple(pv) + tuple(mv) + (score, best, bj)
-
-    init = tuple([m31] * W) + tuple([zero] * W) + (ql, ql, zero)
-    out = jax.lax.fori_loop(0, Lt, col, init)
-    best, bj = out[2 * W + 1], out[2 * W + 2]
-    isz = ql == 0
-    dist_ref[0] = jnp.where(isz, zero, best)
-    tend_ref[0] = jnp.where(isz, zero, bj)
+def _block_for(N: int, block: int) -> int:
+    return min(block, max(16, 1 << (max(N, 1) - 1).bit_length()))
 
 
-# planes live in VMEM for the whole column loop: 2 * Lt * W * pair_sub *
-# 128 * 4 bytes must fit alongside the target tile.  The budget leaves
-# >2x headroom under a v5e core's ~128 MiB VMEM; planes_fit_vmem doubles
-# the block estimate because with grid G > 1 the Pallas pipeline
-# double-buffers every grid-indexed block (in AND out).
-PLANES_VMEM_BUDGET = 48 * 1024 * 1024
-
-
-@functools.partial(jax.jit, static_argnames=("pair_sub", "interpret"))
-def myers_batch_planes_pallas(q: jax.Array, t: jax.Array, qlen: jax.Array,
-                              tlen: jax.Array, pair_sub: int = 8,
-                              interpret: bool = False):
-    """Batched bit-parallel DP that also emits per-column Pv/Mv planes.
-
-    Returns (MyersResult, pv_planes, mv_planes) with planes int32
-    (Lt, N, W) — bit-exact vs ops.myers.myers_batch_planes.  Callers
-    check planes_fit_vmem() first; oversized shapes use the XLA fallback.
-    """
+def _call(q, t, qlen, tlen, *, planes: bool, block: int, num_warps: int,
+          reload, interpret: bool):
     N, Lq = q.shape
     Lt = t.shape[1]
-    T = pair_sub * 128
-    if N % T:
-        raise ValueError(f"N={N} not a multiple of pair tile {T}")
-    W = n_words(Lq)
-    if W > MAX_WORDS:
-        raise ValueError(f"Lq={Lq} needs {W} words > {MAX_WORDS}")
-    G = N // T
-    q0, q1, vq, mend = query_planes(q, qlen, W)
-
-    def to4(x):
-        X = x.shape[1]
-        return x.reshape(G, pair_sub, 128, X).transpose(0, 3, 1, 2)
-
-    def to3(x):
-        return x.reshape(G, pair_sub, 128)
-
-    tT = to4(t.astype(I32))
-    b4 = lambda X: pl.BlockSpec((1, X, pair_sub, 128),
-                                lambda g: (g, 0, 0, 0),
-                                memory_space=pltpu.VMEM)
-    b3 = pl.BlockSpec((1, pair_sub, 128), lambda g: (g, 0, 0),
-                      memory_space=pltpu.VMEM)
-    b5 = pl.BlockSpec((1, Lt, W, pair_sub, 128),
-                      lambda g: (g, 0, 0, 0, 0), memory_space=pltpu.VMEM)
-    cells = N * Lq * Lt
-    dist, tend, pvp, mvp = pl.pallas_call(
-        functools.partial(_myers_planes_kernel, W=W, Lt=Lt),
-        grid=(G,),
-        in_specs=[b3, b3, b4(W), b4(W), b4(W), b4(W), b4(Lt)],
-        out_specs=[b3, b3, b5, b5],
-        out_shape=[jax.ShapeDtypeStruct((G, pair_sub, 128), jnp.int32)] * 2
-        + [jax.ShapeDtypeStruct((G, Lt, W, pair_sub, 128), jnp.int32)] * 2,
-        interpret=interpret,
-        cost_estimate=pl.CostEstimate(
-            flops=2 * cells // 31 + cells // 8,
-            bytes_accessed=N * (Lt + 4 * W + 16 + 8 * W * Lt) * 4,
-            transcendentals=0),
-    )(to3(qlen.astype(I32)), to3(tlen.astype(I32)),
-      to4(q0), to4(q1), to4(vq), to4(mend), tT)
-    res = MyersResult(dist=dist.reshape(N), tend=tend.reshape(N))
-    planes = lambda x: x.transpose(1, 0, 3, 4, 2).reshape(Lt, N, W)
-    return res, planes(pvp), planes(mvp)
-
-
-def planes_fit_vmem(Lq: int, Lt: int, pair_sub: int = 8) -> bool:
-    W = n_words(Lq)
-    # x2: the grid pipeline double-buffers each block (round-2 advisor fix)
-    need = 2 * (2 * Lt * W + Lt + 5 * W) * pair_sub * 128 * 4
-    return W <= MAX_WORDS and need <= PLANES_VMEM_BUDGET
-
-
-@functools.partial(jax.jit,
-                   static_argnames=("pair_sub", "interpret"))
-def myers_batch_pallas(q: jax.Array, t: jax.Array, qlen: jax.Array,
-                       tlen: jax.Array, pair_sub: int = 8,
-                       interpret: bool = False) -> MyersResult:
-    """Batched bit-parallel semi-global edit distance on TPU.
-
-    q, t: int32 base codes (N, Lq), (N, Lt); codes outside 0..3 never match.
-    N must be a multiple of pair_sub*128 (callers pad).  Bit-exact vs
-    ops.myers.myers_batch / oracle.edit_distance_hw.
-    """
-    N, Lq = q.shape
-    Lt = t.shape[1]
-    T = pair_sub * 128
-    if N % T:
-        raise ValueError(f"N={N} not a multiple of pair tile {T}")
     W = n_words(Lq)
     if W > MAX_WORDS:
         raise ValueError(f"Lq={Lq} needs {W} words > {MAX_WORDS}; "
-                         "use myers_batch or segment the query")
-    G = N // T
-    q0, q1, vq, mend = query_planes(q, qlen, W)     # (N, W)
+                         "use ops.myers.myers_batch")
+    if t.shape[0] != N:
+        raise ValueError("the kernel takes one target row per pair")
+    B = _block_for(N, block)
+    Np = -(-N // B) * B
+    pad = Np - N
+    q0, q1, vq, mend = query_planes(q, qlen, W)              # (N, W)
+    cols = lambda x: jnp.pad(x.T, ((0, 0), (0, pad)))       # (W, Np)
+    # int8 column-major target; every invalid code folds to 4 first so the
+    # narrowing cannot alias an invalid code onto a base
+    tt = t.astype(I32)
+    t8 = jnp.where((tt >= 0) & (tt < 4), tt, 4).astype(jnp.int8)
+    tT = jnp.pad(t8.T, ((0, 0), (0, pad)), constant_values=4)
+    vec = lambda x: jnp.pad(x.astype(I32), (0, pad))
 
-    def to4(x):      # (N, X) -> (G, X, S, 128): column-major per pair tile
-        X = x.shape[1]
-        return x.reshape(G, pair_sub, 128, X).transpose(0, 3, 1, 2)
-
-    def to3(x):      # (N,) -> (G, S, 128)
-        return x.reshape(G, pair_sub, 128)
-
-    tT = to4(t.astype(I32))
-    b4 = lambda X: pl.BlockSpec((1, X, pair_sub, 128),
-                                lambda g: (g, 0, 0, 0),
-                                memory_space=pltpu.VMEM)
-    b3 = pl.BlockSpec((1, pair_sub, 128), lambda g: (g, 0, 0),
-                      memory_space=pltpu.VMEM)
-    cells = N * Lq * Lt
-    dist, tend = pl.pallas_call(
-        functools.partial(_myers_kernel, W=W, Lt=Lt),
-        grid=(G,),
-        in_specs=[b3, b3, b4(W), b4(W), b4(W), b4(W), b4(Lt)],
-        out_specs=[b3, b3],
-        out_shape=[jax.ShapeDtypeStruct((G, pair_sub, 128), jnp.int32)] * 2,
+    b1 = pl.BlockSpec((B,), lambda g: (g,))
+    bw = pl.BlockSpec((W, B), lambda g: (0, g))
+    bt = pl.BlockSpec((Lt, B), lambda g: (0, g))
+    out_specs = [b1, b1]
+    out_shape = [jax.ShapeDtypeStruct((Np,), I32)] * 2
+    if planes:
+        out_specs += [pl.BlockSpec((Lt, B, W), lambda g: (0, g, 0))] * 2
+        out_shape += [jax.ShapeDtypeStruct((Lt, Np, W), I32)] * 2
+    if reload is None:
+        reload = W > RELOAD_WORDS
+    outs = pl.pallas_call(
+        functools.partial(_myers_kernel, W=W, Lt=Lt, reload=bool(reload)),
+        grid=(Np // B,),
+        in_specs=[b1, b1, bw, bw, bw, bw, bt],
+        out_specs=out_specs,
+        out_shape=out_shape,
+        backend="triton",
+        # the column loop carries its state in registers: nothing for
+        # Triton to software-pipeline, so one stage
+        compiler_params=plgpu.CompilerParams(num_warps=num_warps,
+                                             num_stages=1),
         interpret=interpret,
-        cost_estimate=pl.CostEstimate(
-            flops=2 * cells // 31 + cells // 8,
-            bytes_accessed=N * (Lt + 4 * W + 16) * 4,
-            transcendentals=0),
-    )(to3(qlen.astype(I32)), to3(tlen.astype(I32)),
-      to4(q0), to4(q1), to4(vq), to4(mend), tT)
-    return MyersResult(dist=dist.reshape(N), tend=tend.reshape(N))
+        name="myers_planes" if planes else "myers_gate",
+    )(vec(qlen), vec(tlen), cols(q0), cols(q1), cols(vq), cols(mend), tT)
+    res = MyersResult(dist=outs[0][:N], tend=outs[1][:N])
+    if not planes:
+        return res
+    pvp, mvp = outs[2], outs[3]
+    if pad:
+        pvp, mvp = pvp[:, :N], mvp[:, :N]
+    return res, pvp, mvp
+
+
+_STATIC = ("block", "num_warps", "reload", "interpret")
+
+
+@functools.partial(jax.jit, static_argnames=_STATIC)
+def myers_batch_pallas(q: jax.Array, t: jax.Array, qlen: jax.Array,
+                       tlen: jax.Array, block: int = BLOCK,
+                       num_warps: int = GATE_WARPS, reload=None,
+                       interpret: bool = False) -> MyersResult:
+    """Batched bit-parallel semi-global edit distance on the GPU.
+
+    q, t: integer base codes (N, Lq), (N, Lt); codes outside 0..3 never
+    match.  N is padded to the block internally.  Bit-exact vs
+    ops.myers.myers_batch / oracle.edit_distance_hw.
+    """
+    return _call(q, t, qlen, tlen, planes=False, block=block,
+                 num_warps=num_warps, reload=reload,
+                 interpret=interpret)
+
+
+@functools.partial(jax.jit, static_argnames=_STATIC)
+def myers_batch_planes_pallas(q: jax.Array, t: jax.Array, qlen: jax.Array,
+                              tlen: jax.Array, block: int = BLOCK,
+                              num_warps: int = PLANES_WARPS, reload=None,
+                              interpret: bool = False):
+    """myers_batch_pallas that also emits per-column Pv/Mv planes.
+
+    Returns (MyersResult, pv_planes, mv_planes) with planes int32
+    (Lt, N, W) — bit-exact vs ops.myers.myers_batch_planes.
+    """
+    return _call(q, t, qlen, tlen, planes=True, block=block,
+                 num_warps=num_warps, reload=reload,
+                 interpret=interpret)

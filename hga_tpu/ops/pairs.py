@@ -1,6 +1,6 @@
 """L2 device ops — candidate overlap pairs from shared minimizers.
 
-TPU-native replacement for the reference's hash-map seed index + bucket
+Device replacement for the reference's hash-map seed index + bucket
 cross-product pair generation (SURVEY.md C6/C7).  The index IS a sorted
 tensor: entries (minimizer, read, pos, strand) sorted by minimizer value form
 the hit lists; pair generation is a bounded sorted self-join — entry i pairs

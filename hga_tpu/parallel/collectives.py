@@ -3,7 +3,8 @@
 The reference merges nothing: one process owns the single hash table and the
 single overlap graph (SURVEY.md §3.2).  Here the global k-mer spectrum and
 edge lists are distributed state, merged with XLA collectives inside
-`shard_map` so the compiler schedules them over ICI/DCN:
+`shard_map`, which XLA lowers to NCCL collectives over NVLink on a
+multi-GPU host:
 
 * `count_kmers_sharded` — each shard counts its reads locally (sort +
   segment-sum, ops/count.py), then the compacted (kmer, count) lists are

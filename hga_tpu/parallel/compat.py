@@ -1,27 +1,18 @@
-"""JAX API compatibility shims.
+"""`jax.shard_map` under the repo's historical `check_rep=` spelling.
 
-`shard_map` moved from `jax.experimental.shard_map` (deprecated in jax 0.8,
-import warns) to `jax.shard_map`, which also renamed the `check_rep` kwarg
-to `check_vma`.  Every in-repo site imports `shard_map` from here and keeps
-the historical `check_rep=` spelling; the shim translates for whichever API
-the installed jax exposes.
+`jax.shard_map` names that keyword `check_vma`; every in-repo site imports
+`shard_map` from here and the shim renames it.
 """
 
 from __future__ import annotations
 
 import functools
-import inspect
 
-try:
-    from jax import shard_map as _shard_map
-except ImportError:  # pragma: no cover - older jax
-    from jax.experimental.shard_map import shard_map as _shard_map
-
-_PARAMS = set(inspect.signature(_shard_map).parameters)
+from jax import shard_map as _shard_map
 
 
 @functools.wraps(_shard_map)
 def shard_map(*args, **kw):
-    if "check_rep" in kw and "check_rep" not in _PARAMS:
+    if "check_rep" in kw:
         kw["check_vma"] = kw.pop("check_rep")
     return _shard_map(*args, **kw)

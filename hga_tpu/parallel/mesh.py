@@ -1,14 +1,14 @@
 """L6 — device mesh construction and sharding helpers.
 
 The reference is a single-node, single-process C++ program (SURVEY.md §3.2:
-no distributed backend exists).  The TPU-native build distributes every stage
+no distributed backend exists).  This build distributes every stage
 over a `jax.sharding.Mesh`:
 
 * axis "data": reads / candidate pairs / alignment tiles are sharded
   data-parallel across all chips (the dominant axis for this workload).
 * cross-shard merges (k-mer spectra, overlap edge lists) ride XLA collectives
-  (psum / all_gather / all_to_all) over ICI within a slice and DCN across
-  slices — see hga_tpu/parallel/collectives.py.
+  (psum / all_gather / all_to_all); the cards of one host are joined all to
+  all, so the mesh is one flat axis — see hga_tpu/parallel/collectives.py.
 
 Multi-host entry: call `init_distributed()` (wraps
 `jax.distributed.initialize`) before `make_mesh()`; single-process runs and
@@ -18,6 +18,8 @@ the 8-device virtual-CPU test mesh need no init.
 from __future__ import annotations
 
 import os
+import shutil
+import subprocess
 from typing import Optional, Sequence, Tuple
 
 import jax
@@ -29,14 +31,39 @@ def init_distributed(
     coordinator: Optional[str] = None,
     num_processes: Optional[int] = None,
     process_id: Optional[int] = None,
+    local_device_ids: Optional[Sequence[int]] = None,
 ) -> None:
-    """Initialize multi-host JAX (no-op when single-process env vars absent)."""
+    """Initialize multi-process JAX (no-op when single-process env vars
+    absent).
+
+    Each process binds to its own card: JAX reserves most of a card's
+    memory when a process first touches it, so processes sharing a machine
+    must not all open every card.  local_device_ids defaults to
+    local_card(process_id).
+    """
     if coordinator is None and "JAX_COORDINATOR" in os.environ:
         coordinator = os.environ["JAX_COORDINATOR"]
         num_processes = int(os.environ.get("JAX_NUM_PROCESSES", "1"))
         process_id = int(os.environ.get("JAX_PROCESS_ID", "0"))
-    if coordinator is not None:
-        jax.distributed.initialize(coordinator, num_processes, process_id)
+    if coordinator is None:
+        return
+    if local_device_ids is None:
+        local_device_ids = local_card(process_id or 0)
+    jax.distributed.initialize(coordinator, num_processes, process_id,
+                               local_device_ids=local_device_ids)
+
+
+def local_card(process_id: int) -> Optional[Sequence[int]]:
+    """The one card a process owns on a CUDA machine — card process_id
+    modulo the machine's card count (nvidia-smi -L) — or None elsewhere,
+    which keeps JAX's default devices."""
+    if (os.environ.get("JAX_PLATFORMS", "").strip() == "cpu"
+            or shutil.which("nvidia-smi") is None):
+        return None
+    out = subprocess.run(["nvidia-smi", "-L"], capture_output=True,
+                         text=True).stdout
+    n = sum(1 for line in out.splitlines() if line.startswith("GPU "))
+    return [process_id % n] if n else None
 
 
 def make_mesh(

@@ -1,9 +1,9 @@
 """L6 — ring sequence-parallel Myers DP: an ultra-long target split across
-chips, with the DP column state handed neighbor-to-neighbor over ICI.
+devices, with the DP column state handed neighbor-to-neighbor (ppermute).
 
 This is the SP/CP + ring component of SURVEY.md §3.1/§6 ("ultra-long
 sequences split across chips with halo exchange ... ring-style neighbor
-permute over ICI").  The reference processes its longest sequence serially
+permute").  The reference processes its longest sequence serially
 in one address space; here a target too long (or a pileup backbone too
 wide) for one chip's memory is column-sharded over the 'data' axis and the
 bit-parallel Myers recurrence streams through the ring:

@@ -11,7 +11,8 @@ Conventions pinned here (SURVEY.md Appendix A):
 * reverse-complement value: RC(i) = sum_t (3-b[i+k-1-t]) << 2*(k-1-t)
 * canonical k-mer = min(V, RC); strand 0 if V <= RC else 1.
 * device representation: (hi, lo) = (V >> 32, V & 0xffffffff) as uint32 pairs
-  (TPUs have no 64-bit integers; lexicographic (hi, lo) order == uint64 order).
+  (JAX runs without 64-bit integers by default; lexicographic (hi, lo) order
+  == uint64 order).
 * minimizer hash: murmur3 fmix32 of (lo ^ (hi * 0x9E3779B1)), ties by leftmost
   position.  Window j covers k-mer positions [j, j+w).
 """
@@ -391,7 +392,7 @@ def edit_distance_hw(q, t) -> Tuple[int, int]:
     The whole query aligns somewhere inside the target: D[i][0] = i,
     D[0][j] = 0; returns (min_j D[m][j], argmin j) with the SMALLEST j
     breaking ties.  This is the semantic reference for ops/myers.py — the
-    TPU-native replacement for the reference's scalar alignment loops on the
+    device replacement for the reference's scalar alignment loops on the
     overlap-extension path (SURVEY.md C9).  NOTE: unit-cost edit distance is
     NOT score-equivalent to SW (no match bonus, no affine gaps), so SW score
     thresholds do not transfer; the overlap gate re-calibrates acceptance as
@@ -416,6 +417,27 @@ def edit_distance_hw(q, t) -> Tuple[int, int]:
             best, best_j = int(cur[m]), j
         prev = cur
     return best, best_j
+
+
+def myers_query_planes(q, qlen: int, W: int):
+    """Bit-planes of one query, bit by bit: (q0, q1, vq, mend) lists of W
+    ints.  Bit b of word w is query position 31*w + b; positions >= qlen
+    and codes >= 4 are invalid (all planes 0 there); mend holds the
+    single bit qlen - 1 (none for qlen == 0).  Reference for
+    ops.myers.query_planes."""
+    q0, q1, vq, mend = ([0] * W for _ in range(4))
+    for i in range(min(int(qlen), len(q), 31 * W)):
+        c = int(q[i])
+        if c >= 4:
+            continue
+        w, b = divmod(i, 31)
+        vq[w] |= 1 << b
+        q0[w] |= (c & 1) << b
+        q1[w] |= ((c >> 1) & 1) << b
+    if qlen > 0:
+        w, b = divmod(int(qlen) - 1, 31)
+        mend[w] = 1 << b
+    return q0, q1, vq, mend
 
 
 def hw_traceback_votes(q, t):

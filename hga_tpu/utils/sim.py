@@ -296,3 +296,29 @@ def make_dataset(
         seed=seed + 2,
     )
     return SimDataset(genome, ss, sn, ls, ln, short_quals=sq)
+
+
+def dp_pairs(N: int, Lq: int, Lt: int, seed: int = 7):
+    """Batched query/target code pairs for checking the Myers engines.
+
+    Each target holds a mutated copy of its query (5% deletions, 5%
+    substitutions) inside random flanks; an eighth of the queries have
+    ragged lengths (some 0), and sentinel code 4 sits in some target
+    windows and query tails.  Returns int32 (q, t, qlen, tlen).
+    """
+    rng = np.random.default_rng(seed)
+    q = rng.integers(0, 4, (N, Lq)).astype(np.int32)
+    t = rng.integers(0, 4, (N, Lt)).astype(np.int32)
+    keep = rng.random((N, Lq)) >= 0.05
+    sub = rng.random((N, Lq)) < 0.05
+    mut = np.where(sub, (q + 1 + rng.integers(0, 3, q.shape)) % 4, q)
+    start = min(16, max(0, Lt - Lq))
+    for i in range(N):
+        seg = mut[i][keep[i]][: Lt - start]
+        t[i, start:start + seg.size] = seg
+    ql = np.full(N, Lq, np.int32)
+    ql[: N // 8] = rng.integers(0, Lq, N // 8)
+    t[N // 4: N // 4 + N // 16, :8] = 4
+    q[N // 2: N // 2 + N // 32, -6:] = 4
+    tl = np.full(N, Lt, np.int32)
+    return q, t, ql, tl

@@ -114,23 +114,3 @@ def test_bucketed_spectrum_matches_single():
     kb = K.extract_kmers(packed, bad, length, k)
     ref = C.spectrum_histogram(C.count_kmer_batch(kb), 8)
     np.testing.assert_array_equal(np.asarray(hist), np.asarray(ref))
-
-
-def test_comm_volume_model():
-    """The DCN comm model (bench --what comm): sane shapes and scaling —
-    2 hosts move half the cross fraction of 4 hosts' relative share, and a
-    single host moves nothing over DCN."""
-    from hga_tpu.utils.benchmarks import comm_volume_model
-
-    one = comm_volume_model(n_hosts=1)
-    assert one["total_dcn_bytes_per_host"] == 0
-    two = comm_volume_model(n_hosts=2)
-    four = comm_volume_model(n_hosts=4)
-    assert set(two["stages"]) == {"count_route", "corrected_gather",
-                                  "overlap_gather", "polish_gather"}
-    assert two["total_dcn_bytes_per_host"] > 0
-    # cross fractions: 1/2 vs 3/4, but per-host local share also shrinks
-    c2 = two["stages"]["count_route"]["dcn_bytes_per_host"]
-    c4 = four["stages"]["count_route"]["dcn_bytes_per_host"]
-    assert abs(c4 / c2 - (3 / 4 / 4) / (1 / 2 / 2)) < 0.01
-    assert two["dcn_seconds"] > 0
